@@ -46,9 +46,13 @@ setup(
     version="0.1.0",
     description="TPU-native deep-learning framework with the MXNet v0.10 "
                 "API surface (JAX/XLA compute, C++ IO/runtime engines)",
-    packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*"]),
+    packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*",
+                                    "mxnet_tpu_torch", "mxnet_tpu_torch.*"]),
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
-    package_data={"mxnet_tpu": ["_native/*.so"]},
+    # the PyTorch/CUDA port; its CUDA sources compile at first use
+    extras_require={"torch": ["torch"]},
+    package_data={"mxnet_tpu": ["_native/*.so"],
+                  "mxnet_tpu_torch": ["csrc/*.cu"]},
     cmdclass={"build_native": BuildNative},
 )
